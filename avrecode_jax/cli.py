@@ -14,7 +14,7 @@ from . import pipeline
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="avrecode-tpu", description=__doc__)
+    p = argparse.ArgumentParser(prog="avrecode-jax", description=__doc__)
     p.add_argument("command", choices=["compress", "decompress", "roundtrip", "corpus",
                                        "info"])
     p.add_argument("input", help="file; for corpus: a directory or glob of files")
@@ -26,7 +26,9 @@ def main(argv=None) -> int:
     p.add_argument("--bill-table", action="store_true",
                    help="print a human-readable ours-vs-CABAC cost table to stderr")
     p.add_argument("--device", action="store_true",
-                   help="corpus: use the TPU device path per file")
+                   help="corpus: use the JAX device path per file (one JAX "
+                        "process per GPU: a second one on the same card fails "
+                        "for want of memory)")
     p.add_argument("--host-workers", type=int, default=2,
                    help="corpus: concurrent files per process")
     p.add_argument("--resume", action="store_true",
@@ -37,6 +39,8 @@ def main(argv=None) -> int:
     if args.command == "corpus":
         # Multi-host corpus recompression (parallel/distributed.py): files
         # shard across jax processes; single-process runs need no cluster.
+        # With --device, give each GPU one process: a JAX process reserves
+        # most of its card's memory, so a second one there fails for memory.
         import glob
         import os
         from .parallel import distributed as dist

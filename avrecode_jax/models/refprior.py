@@ -46,10 +46,10 @@ class RefPriorConfig:
     res_dir_fast_boost: int = 2
     # model profiles (container field): 0 = immediate within-batch increments
     # (host path, ratio-optimal), 2 = frozen-batch (device path, slim wire,
-    # measured +0.10pp on bench.mp4). Profile 1 (EMA) was removed — see
-    # RESULTS.md "Pallas decision".
+    # measured +0.10pp on bench.mp4). Profile 1 (EMA) was removed in favour
+    # of the XLA super-batched pass.
     profiles: tuple = (0, 2)
-    # batched-update semantics (the TPU formulation)
+    # batched-update semantics (the device formulation)
     default_batch: int = 4096
     max_batch: int = 32768        # uint16 counter headroom
     # entropy lanes

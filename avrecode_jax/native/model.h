@@ -9,7 +9,7 @@
 // temporal (previous picture) priors (reference recode.cpp:884).
 //
 // Differences (deliberate, documented):
-//  - Context identity is a stable spec ctxIdx (dense tables -> TPU-friendly),
+//  - Context identity is a stable spec ctxIdx (dense tables -> device-friendly),
 //    not an ffmpeg state pointer (reference recode.cpp:318 uses pointer keys
 //    in a std::map — a red-black-tree lookup per bin).
 //  - nnz is serialized as (nnz-1) in ceil(log2(maxCoeff)) bits: same widths as
@@ -71,7 +71,7 @@ class PriorModel {
   static constexpr int kNumResCtx = 59;  // 227..275 and 426..435 compacted
   static constexpr size_t kResStride = size_t(kNumResCtx) * 16 * 16;  // x nnz x pos
 
-  // Unified Dual table layout (global key space, shared with the TPU path):
+  // Unified Dual table layout (global key space, shared with the device path):
   //   [0, 3*kCtxStride)                       per-class ctx estimators
   //   [kNzBase, +3*kNzStride)                 nonzero-count estimators
   //   [kResBase, +3*kResStride)               residual-level estimators
@@ -150,7 +150,7 @@ class PriorModel {
   // within a batch come from tables frozen at the last batch boundary, and all
   // of a batch's updates are applied at once (per-key aggregate, then
   // halve-while-over-window). This makes the model pass a gather + scatter-add
-  // per batch — the TPU formulation — while the serial decoder replicates the
+  // per batch — the device formulation — while the serial decoder replicates the
   // identical integer semantics. B is a container format parameter; B=1 gives
   // classic per-bin adaptation.
   void set_batch_size(uint32_t b) {
@@ -176,12 +176,11 @@ class PriorModel {
 
   // Model profile 0 = counting estimators with immediate within-batch
   // increments (ratio-optimal, the host path); 2 = frozen-batch counting
-  // estimators (probabilities read tables as of the last flush — the TPU
+  // estimators (probabilities read tables as of the last flush — the device
   // formulation behind the slim device wire, measured +0.10pp on bench.mp4).
   // Format-defining; stored in the container. (Profile 1, division-free EMA
-  // estimators for an in-kernel Pallas loop, was removed after the XLA
-  // super-batched pass measured 180x faster than the Pallas scalar loop —
-  // RESULTS.md "Pallas decision".)
+  // estimators for an in-kernel scalar loop, was removed in favour of the XLA
+  // super-batched pass.)
   void set_profile(int p) { profile_ = p; }
   int profile() const { return profile_; }
 
@@ -513,7 +512,7 @@ class PriorModel {
   // Sig priors carry the mix weight in bit 15 (see sig_prior): set = off-mode
   // (mirrored-CABAC prior, weight kSigMixAlphaOff), clear = on-mode
   // (hypergeometric prior, weight kSigMixAlpha). The tag travels verbatim in
-  // the device trace so the TPU pass selects the same weight per bin.
+  // the device trace so the device pass selects the same weight per bin.
   static constexpr uint16_t kPriorOffTag = 0x8000;
   // Residual-level bins use a Dirichlet-style count-weighted mix instead of
   // the fixed-weight linear mix: p = ((K*fp + sp)<<15 + A*prior) /

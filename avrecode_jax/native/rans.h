@@ -1,14 +1,14 @@
 // Binary rANS entropy coder with per-bin adaptive 15-bit probabilities —
 // the recoded-stream format's lane codec.
 //
-// Design rationale (SURVEY.md §2.1 TPU note, §7): the reference uses a serial
+// Design rationale (SURVEY.md §2.1, §7): the reference uses a serial
 // carry-propagating 64-bit range coder (reference arithmetic_code.h:31-320).
 // rANS is carry-free, and because encoding runs in *reverse* over
 // probabilities that are precomputed by the model pass, K interleaved lanes
-// encode independently — exactly the structure a TPU vectorizes (one lane per
-// VPU element). Decode is forward and strictly sequential per lane, matching
+// encode independently — exactly the structure a vector machine runs in
+// lockstep (one lane per vector element). Decode is forward and strictly sequential per lane, matching
 // the host serial decompressor. Both are bit-compatible with the JAX lane
-// kernels in avrecode_tpu/ops/.
+// kernels in avrecode_jax/ops/.
 #pragma once
 
 #include <cstdint>
@@ -114,8 +114,8 @@ class RansLaneDecoder {
 // K-lane interleaved codec over a full (bit, prob) sequence: bin i belongs to
 // lane i % K. Wire format: [u32 K][u32 n_bins][u32 lane_len[K] in u16 words]
 // [lane word streams, little-endian u16]. K is per-blob so the device path
-// can use wide lanes (TPU vector width) on large chunks while small chunks
-// stay lean.
+// can use many lanes (a shorter sequential scan) on large chunks while small
+// chunks stay lean.
 struct RansInterleaved {
   static std::vector<uint8_t> encode(const std::vector<uint8_t>& bits,
                                      const std::vector<uint16_t>& probs, int K) {

@@ -90,7 +90,7 @@ namespace artc {
 // versions and the writing build. (Per-partition CAVLC mvd keys were
 // measured here and REJECTED: both adjacent-block and edge-sum variants
 // lose 0.02-0.10pp vs the v25 MB-level sum on natural and synthetic CAVLC —
-// partition-local classes dilute the estimators; see RESULTS.md.)
+// partition-local classes dilute the estimators; RESULTS.md at e656360.)
 // v27: CABAC coded_block_pattern bins keyed on the previous frame's cbp at
 // the same MB (luma per-8x8 bit via the bin's aux, chroma class) on top of
 // the spec's spatial ctxIdxInc — static regions make cbp temporally
@@ -113,8 +113,9 @@ namespace artc {
 // families — the post-v27 residual ctx losses are mixing-optimal already.)
 constexpr uint8_t kContainerVersion = 28;
 
-// Build id injected by CMake (git revision at configure time; build_native
-// re-runs configure on every source-triggered rebuild so it tracks HEAD).
+// Build id injected by host.build_native (git revision of the sources at
+// build time, "nogit" outside a checkout; every source-triggered rebuild
+// recomputes it, so it tracks HEAD).
 #ifndef ARTC_BUILD_ID
 #define ARTC_BUILD_ID "unknown"
 #endif
@@ -131,7 +132,7 @@ struct Options {
   // nz-mode probe (they are statistically homogeneous by construction).
   uint64_t section_bins = 0;
   // Estimator-update batch size: 1 = per-bin adaptation (reference-like,
-  // serial); >1 = frozen-within-batch tables (the TPU formulation; measured
+  // serial); >1 = frozen-within-batch tables (the device formulation; measured
   // ratio cost <0.3% at 16k). Stored in the container header.
   uint32_t batch_size = 1;
   // 0 = immediate within-batch increments (host path); 2 = frozen-batch (the
@@ -192,7 +193,7 @@ struct CtxBillTab {
 // Model encode pass: replays recorded SymbolStreams through the prior model,
 // producing the flat (bit, prob) pair stream for the rANS lanes. The reference
 // does this inline in its hooks with symbol queueing (recode.cpp:1160-1254);
-// here it is a separate pass so the TPU path can batch it.
+// here it is a separate pass so the device path can batch it.
 class ModelEncoder {
  public:
   ModelEncoder(PriorModel& m, std::vector<uint8_t>& bits, std::vector<uint16_t>& probs)

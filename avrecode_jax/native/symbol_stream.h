@@ -4,7 +4,7 @@
 // This is the host->device interchange format: the syntax walk happens once on
 // host, producing dense tensors of (ctx, klass, bin, pos) plus block/MB events;
 // the adaptive-model + entropy-coding passes consume these either serially
-// (C++) or batched on TPU. It replaces the reference's hook-callback coupling
+// (C++) or batched on the JAX device. It replaces the reference's hook-callback coupling
 // (reference recode.cpp:212-228) with a replayable stream.
 #pragma once
 

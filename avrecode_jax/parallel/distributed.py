@@ -4,11 +4,11 @@ The reference has no distributed story whatsoever (strictly single-threaded,
 reference recode.cpp:122; SURVEY.md §2.9/§5). This module is the framework's
 scale-out layer:
 
-  - host axis (DCN): independent *files* (or file shards) are distributed
+  - host axis: independent *files* (or file shards) are distributed
     round-robin across processes — recompression is embarrassingly parallel
     at file granularity, and per-IDR chunking (chunk_mode=1) makes even a
     single huge file splittable into independent work units.
-  - device axis (ICI): within a host, chunks shard over the local mesh
+  - device axis: within a host, chunks shard over the local mesh
     (parallel/mesh.py, 'gop' axis) and rANS lanes over 'lane'.
   - pipeline: host-side syntax analysis (C++ thread pool, GIL released
     during the ctypes call) overlaps the previous file's device model pass —
@@ -153,7 +153,7 @@ def corpus_compress(paths: list[str], out_dir: str, *, use_device: bool = False,
     rep.wall_s = time.time() - t0
 
     if pcount > 1:
-        # One fixed-width psum merges the scalar stats across hosts (DCN).
+        # One fixed-width psum merges the scalar stats across hosts.
         local = jnp.asarray(
             [rep.files, rep.input_bytes, rep.output_bytes, rep.failures], jnp.int64)
         total = np.asarray(_psum_across_processes(local))

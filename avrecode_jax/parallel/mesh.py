@@ -7,8 +7,8 @@ reference is single-threaded):
             estimator tables), so this axis scales linearly.
   - 'lane': within-chunk parallelism over rANS entropy lanes; lanes are
             independent streams, so the lane-encode scan shards with no
-            collectives. Cross-axis reductions (byte totals, billing) ride
-            psum over ICI.
+            collectives. Cross-axis reductions (byte totals, billing) are
+            psums (NCCL between GPUs).
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ the learning loop — jitted over the full mesh:
   - the rANS lane-encode scan shards over 'lane' (lanes are independent
     subsequences of the pair stream);
   - global statistics (total payload words, billing sums) reduce with psum
-    over both axes (ICI collectives).
+    over both axes.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def sharded_v4_compress_step(mesh: Mesh, *, batch: int, sup: int, fast_w: int,
     ~2.3 B/bin wire the single-chip path ships, instead of the ~6 B/bin dense
     planes the pre-blob mesh paid), models them with the frozen-batch v3
     core, lane-scans over 'lane', and psums the payload-word total over both
-    axes (ICI collectives). The outputs reassemble into byte-identical
+    axes. The outputs reassemble into byte-identical
     RansInterleaved blobs -> a real ATRC container (device.compress_mesh),
     decodable by the host serial decoder.
 

@@ -1,4 +1,4 @@
-"""Direct entropy-coder unit tests (VERDICT r1 item 6; the reference
+"""Direct entropy-coder unit tests (the reference
 property-tests its coder the same way, reference test/arithmetic_code.cpp):
 
 - randomized rANS property test with per-context biases, cross-checking the
@@ -16,7 +16,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from avrecode_tpu import host
+from avrecode_jax import host
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -91,7 +91,7 @@ def test_rans_randomized_roundtrip(lanes, n):
 
 @pytest.mark.parametrize("lanes", [1, 4, 64])
 def test_rans_jax_encoder_byte_identical(lanes):
-    from avrecode_tpu.ops import lanes as lx
+    from avrecode_jax.ops import lanes as lx
     rng = np.random.default_rng(lanes)
     bits, probs = _random_biased_stream(rng, 4096)
     blob_c = _c_encode(bits, probs, lanes)
@@ -154,9 +154,9 @@ def test_tsan_clean(corpus_dir, tmp_path):
     exe = str(tmp_path / "tsan_check")
     subprocess.run(
         ["g++", "-fsanitize=thread", "-O1", "-g", "-std=c++17",
-         "-I", os.path.join(REPO, "avrecode_tpu", "native"),
+         "-I", os.path.join(REPO, "avrecode_jax", "native"),
          "-o", exe,
-         os.path.join(REPO, "avrecode_tpu", "native", "recode.cc"),
+         os.path.join(REPO, "avrecode_jax", "native", "recode.cc"),
          os.path.join(REPO, "tools", "tsan_check.cc"),
          "-lpthread"],
         check=True, capture_output=True)

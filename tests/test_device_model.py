@@ -1,7 +1,7 @@
 """Differential tests: device model implementations vs the host C++ model.
 
-Runs on the CPU backend (conftest forces it); the Pallas kernel runs in
-interpreter mode — semantics only, not performance."""
+Runs on JAX's CPU backend (conftest sets JAX_PLATFORMS=cpu unless it is
+already set) — semantics only, not performance."""
 import os
 
 import numpy as np
@@ -15,7 +15,7 @@ def small_clip(corpus_dir):
 
 
 def test_jax_model_pass_bit_exact(small_clip):
-    from avrecode_tpu import device
+    from avrecode_jax import device
     an = device.analyze(small_clip, batch_size=2048)
     for c in an.chunks:
         probs = device.device_probs(an, c)
@@ -23,7 +23,7 @@ def test_jax_model_pass_bit_exact(small_clip):
 
 
 def test_jax_lanes_byte_identical(small_clip):
-    from avrecode_tpu import device, pipeline
+    from avrecode_jax import device, pipeline
     comp_dev, _ = device.compress(small_clip, batch_size=2048)
     dec, _ = pipeline.decompress(comp_dev)
     assert dec == small_clip
@@ -33,9 +33,9 @@ def test_refprior_constants_match_native(small_clip):
     """models/refprior.py is documentation of format-defining constants; the
     analysis export header carries the native values — they must agree across
     all three layers (C++, Python docs, device pass defaults)."""
-    from avrecode_tpu import device
-    from avrecode_tpu.models.refprior import MODEL_FAMILIES
-    from avrecode_tpu.ops import model_pass as mp
+    from avrecode_jax import device
+    from avrecode_jax.models.refprior import MODEL_FAMILIES
+    from avrecode_jax.ops import model_pass as mp
     cfg = MODEL_FAMILIES["refprior"]
     an = device.analyze(small_clip, batch_size=1024)
     assert an.fast_w == cfg.fast_window
@@ -52,10 +52,10 @@ def test_refprior_constants_match_native(small_clip):
 
 
 def test_removed_ema_profile_rejected(small_clip):
-    """Profile 1 (division-free EMA, the Pallas experiment) was removed after
-    the XLA super-batched pass measured 180x faster (RESULTS.md "Pallas
-    decision"); requesting it must fail loudly, not silently miscode."""
-    from avrecode_tpu import pipeline
+    """Profile 1 (division-free EMA) was removed in favour of the XLA
+    super-batched pass; requesting it must fail loudly, not silently
+    miscode."""
+    from avrecode_jax import pipeline
     with pytest.raises(Exception):
         pipeline.compress(small_clip, model_profile=1)
 
@@ -63,8 +63,8 @@ def test_removed_ema_profile_rejected(small_clip):
 def test_model_pass_v2_bit_exact_all_impls(small_clip):
     """The fast path (host-shipped prefix counts + super-batched dicts) must
     match the host and the reference impls bit-for-bit."""
-    from avrecode_tpu import device
-    from avrecode_tpu.ops import model_pass as mp
+    from avrecode_jax import device
+    from avrecode_jax.ops import model_pass as mp
     an = device.analyze(small_clip, batch_size=1024)
     c = an.chunks[0]
     for sup in (1, 4):
@@ -77,7 +77,7 @@ def test_model_pass_v2_bit_exact_all_impls(small_clip):
 def test_model_pass_v2_pcm_stream(corpus_dir):
     """PCM (kind-3 passthrough) bins must stay batch-aligned between the host
     pending stream and the device trace stream."""
-    from avrecode_tpu import device, pipeline
+    from avrecode_jax import device, pipeline
     with open(os.path.join(corpus_dir, "pcm_mixed.mp4"), "rb") as f:
         data = f.read()
     an = device.analyze(data, batch_size=512)
@@ -91,7 +91,7 @@ def test_model_pass_v2_pcm_stream(corpus_dir):
 
 def test_frozen_profile_roundtrip(small_clip):
     """model_profile=2 (frozen batches) is a valid container variant."""
-    from avrecode_tpu import pipeline
+    from avrecode_jax import pipeline
     rep = pipeline.roundtrip(small_clip, batch_size=1024, model_profile=2)
     assert rep.ok
 
@@ -100,7 +100,7 @@ def test_slim_wire_bit_exact(small_clip):
     """The slim (ANL2) wire format + frozen-batch device pass must reproduce
     the host profile-2 probabilities bit-for-bit, including prior-dictionary
     escapes and the on-device COO delta reconstruction."""
-    from avrecode_tpu import device
+    from avrecode_jax import device
     an = device.analyze(small_clip, batch_size=1024, model_profile=2)
     assert an.slim
     for c in an.chunks:
@@ -118,7 +118,7 @@ def test_slim_wire_extreme_widths(corpus_dir, clip):
     no-straddle wire (BitPacker::put_ns / _unpack_dev): qp51 yields tiny
     frequency runs (small widths), qp6 dense ones. Bit-exact differential +
     roundtrip per chunk."""
-    from avrecode_tpu import device, pipeline
+    from avrecode_jax import device, pipeline
     with open(os.path.join(corpus_dir, clip), "rb") as f:
         data = f.read()
     an = device.analyze(data, batch_size=1024, model_profile=2)
@@ -133,7 +133,7 @@ def test_slim_wire_extreme_widths(corpus_dir, clip):
 
 def test_slim_multichunk_roundtrip(corpus_dir):
     """Slim path over per-GOP chunks (chunk_mode=1) through the host decoder."""
-    from avrecode_tpu import device, pipeline
+    from avrecode_jax import device, pipeline
     with open(os.path.join(corpus_dir, "ipb_high.mp4"), "rb") as f:
         data = f.read()
     an = device.analyze(data, batch_size=512, chunk_mode=1, model_profile=2)
@@ -150,7 +150,7 @@ def test_warm_sectioned_roundtrip(corpus_dir, monkeypatch):
     small clip, verify the bit-exact host roundtrip and the device
     differential with a nonzero sparse sig0 start state (chunks 1+ start
     from chunk 0's table snapshot)."""
-    from avrecode_tpu import device, pipeline
+    from avrecode_jax import device, pipeline
     with open(os.path.join(corpus_dir, "multislice.264"), "rb") as f:
         data = f.read()
     monkeypatch.setenv("ARTC_SECTION_BINS", "150000")
@@ -174,7 +174,7 @@ def test_warm_sectioned_profile0_device_differential(corpus_dir, monkeypatch):
     the device pass halves elementwise every sub-batch. The v22 normalized
     snapshot makes both sides provably coincide — this differential pins
     that on a real multi-section trace with warm-started chunks."""
-    from avrecode_tpu import device, pipeline
+    from avrecode_jax import device, pipeline
     with open(os.path.join(corpus_dir, "multislice.264"), "rb") as f:
         data = f.read()
     monkeypatch.setenv("ARTC_SECTION_BINS", "150000")
@@ -195,7 +195,7 @@ def test_cavlc_device_differential(corpus_dir):
     + device pass must reproduce the host probs bit-exactly on a CAVLC clip
     (incl. the kKindPrior I_PCM-style passthrough bins), and the device
     container must decode on the host."""
-    from avrecode_tpu import device, pipeline
+    from avrecode_jax import device, pipeline
     with open(os.path.join(corpus_dir, "cavlc_b8.264"), "rb") as f:
         data = f.read()
     an = device.analyze(data, batch_size=512, model_profile=2)
@@ -210,8 +210,8 @@ def test_cavlc_device_differential(corpus_dir):
 def test_model_pass_mm_impl_bit_exact(small_clip):
     """The sort-free (masked-matmul) prefix formulation must match the
     sort-based one bit-for-bit on real traces."""
-    from avrecode_tpu import device
-    from avrecode_tpu.ops import model_pass as mp
+    from avrecode_jax import device
+    from avrecode_jax.ops import model_pass as mp
     an = device.analyze(small_clip, batch_size=1024)
     c = an.chunks[0]
     a = mp.run_chunk(c.bit, c.kind, c.key, c.prior, c.dual0, 1024,

@@ -8,7 +8,7 @@ import pytest
 
 def test_mesh_construction():
     import jax
-    from avrecode_tpu.parallel.mesh import make_mesh
+    from avrecode_jax.parallel.mesh import make_mesh
     n = len(jax.devices())
     if n < 8:
         pytest.skip("needs the 8-device CPU mesh")
@@ -22,9 +22,9 @@ def test_sharded_recompress_step_matches_single_device():
     SURVEY.md §7 hard part 4)."""
     import jax
     import jax.numpy as jnp
-    from avrecode_tpu.parallel.mesh import make_mesh
-    from avrecode_tpu.parallel.pipeline import sharded_recompress_step
-    from avrecode_tpu.ops import model_pass as mp
+    from avrecode_jax.parallel.mesh import make_mesh
+    from avrecode_jax.parallel.pipeline import sharded_recompress_step
+    from avrecode_jax.ops import model_pass as mp
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU mesh")
@@ -57,10 +57,10 @@ def test_mesh_real_clip_container(corpus_dir):
     """PRODUCT mesh path on REAL data: a multi-GOP x264 clip compressed
     through device.compress_mesh on the 8-device CPU mesh must emit a
     container byte-identical to the single-device path's, and the host C++
-    serial decoder must roundtrip it bit-exactly (VERDICT r1 item 2)."""
+    serial decoder must roundtrip it bit-exactly."""
     import jax
-    from avrecode_tpu import device, pipeline
-    from avrecode_tpu.parallel.mesh import make_mesh
+    from avrecode_jax import device, pipeline
+    from avrecode_jax.parallel.mesh import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU mesh")
@@ -79,7 +79,7 @@ def test_mesh_real_clip_container(corpus_dir):
 
 def test_corpus_compress_single_process(corpus_dir, tmp_path):
     """File-level corpus orchestration: shard, compress, verify, report."""
-    from avrecode_tpu.parallel import distributed as dist
+    from avrecode_jax.parallel import distributed as dist
     paths = [os.path.join(corpus_dir, n)
              for n in ["i_main.264", "cavlc.mp4", "mbaff.264"]]
     rep = dist.corpus_compress(paths, str(tmp_path), use_device=False, verify=True)
@@ -93,7 +93,7 @@ def test_corpus_resume(corpus_dir, tmp_path):
     """Checkpoint/resume: a second run skips completed outputs (existence is
     trustworthy — outputs are written atomically) but redoes missing ones."""
     import time
-    from avrecode_tpu.parallel import distributed as dist
+    from avrecode_jax.parallel import distributed as dist
     paths = [os.path.join(corpus_dir, n) for n in ["i_main.264", "cavlc.mp4"]]
     rep1 = dist.corpus_compress(paths, str(tmp_path), verify=True)
     assert rep1.failures == 0 and rep1.files == 2
@@ -111,7 +111,7 @@ def test_corpus_resume(corpus_dir, tmp_path):
 
 
 def test_corpus_cli(corpus_dir, tmp_path):
-    from avrecode_tpu import cli
+    from avrecode_jax import cli
     rc = cli.main(["corpus", os.path.join(corpus_dir, "*.264"), str(tmp_path)])
     assert rc == 0
     assert len(os.listdir(tmp_path)) > 0
@@ -140,7 +140,7 @@ def test_corpus_two_processes(corpus_dir, tmp_path):
         os.environ["JAX_COORDINATOR"] = "localhost:{port}"
         os.environ["JAX_NUM_PROCESSES"] = "2"
         os.environ["JAX_PROCESS_ID"] = sys.argv[1]
-        from avrecode_tpu import cli
+        from avrecode_jax import cli
         sys.exit(cli.main(["corpus", {repr(os.path.join(corpus_dir, '*.264'))},
                            {repr(str(out_dir))}]))
     """)

@@ -20,7 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHILD = r"""
 import json, sys
 sys.path.insert(0, %(repo)r)
-from avrecode_tpu import host
+from avrecode_jax import host
 data = open(%(clip)r, 'rb').read()
 blob, st = host.compress(data)
 ours = st.bill['nz']['bytes'] + sum(st.bill[k]['bytes'] for k in host.KLASS_NAMES)

@@ -5,7 +5,7 @@ import subprocess
 
 import pytest
 
-from avrecode_tpu import pipeline
+from avrecode_jax import pipeline
 
 CLIPS = ["i_main.264", "ipb_high.264", "ipb_high.mp4", "ipb_high.mkv",
          "ipb_high.mov", "multislice.264",
@@ -200,7 +200,7 @@ def test_syntax_engine_byte_exact(corpus_dir, check_syntax_tool):
 
 @pytest.mark.parametrize("batch", [1, 4096, 32768])
 def test_roundtrip_batched_model(corpus_dir, batch):
-    """Batched estimator updates (TPU formulation) stay bit-exact at any B."""
+    """Batched estimator updates (device formulation) stay bit-exact at any B."""
     with open(os.path.join(corpus_dir, "ipb_high.264"), "rb") as f:
         data = f.read()
     rep = pipeline.roundtrip(data, batch_size=batch)
@@ -225,7 +225,7 @@ def test_container_provenance(corpus_dir, capsys):
     versions (parity with recode.proto:2-7 Metadata, which the reference
     never populated)."""
     import json
-    from avrecode_tpu import cli, host
+    from avrecode_jax import cli, host
     with open(os.path.join(corpus_dir, "ipb_high.264"), "rb") as f:
         data = f.read()
     comp, _ = pipeline.compress(data)
@@ -249,7 +249,7 @@ def test_decompress_fuzz_safety(corpus_dir):
     caught by the integrity CRC — never crash or return wrong bytes
     silently."""
     import random
-    from avrecode_tpu import host
+    from avrecode_jax import host
     with open(os.path.join(corpus_dir, "i_main.264"), "rb") as f:
         data = f.read()
     comp, _ = pipeline.compress(data)

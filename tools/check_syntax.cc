@@ -13,11 +13,11 @@
 #include <map>
 #include <vector>
 
-#include "avrecode_tpu/native/bitstream.h"
-#include "avrecode_tpu/native/h264_params.h"
-#include "avrecode_tpu/native/h264_slice.h"
-#include "avrecode_tpu/native/nal.h"
-#include "avrecode_tpu/native/symbol_stream.h"
+#include "avrecode_jax/native/bitstream.h"
+#include "avrecode_jax/native/h264_params.h"
+#include "avrecode_jax/native/h264_slice.h"
+#include "avrecode_jax/native/nal.h"
+#include "avrecode_jax/native/symbol_stream.h"
 
 using namespace artc;
 

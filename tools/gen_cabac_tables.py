@@ -9,8 +9,8 @@ position -> context-increment maps for 8x8 blocks).  Instead of hand-transcribin
 library's object files (they are embedded there as verbatim spec data), validate
 them against spot values from the spec text, and emit:
 
-  avrecode_tpu/native/gen/cabac_tables.h   (C++)
-  avrecode_tpu/native/gen/cabac_tables.npz (numpy, for the JAX side)
+  avrecode_jax/native/gen/cabac_tables.h   (C++)
+  avrecode_jax/native/gen/cabac_tables.npz (numpy, for the JAX side)
 
 This mirrors what the reference does by aliasing ffmpeg's ff_h264_cabac_tables
 (reference: cabac_code.h:10-12) but with the data re-materialized as spec
@@ -20,7 +20,7 @@ import subprocess, tempfile, os, sys
 import numpy as np
 
 AR = "/usr/lib/x86_64-linux-gnu/libavcodec.a"
-OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "avrecode_tpu", "native", "gen")
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "avrecode_jax", "native", "gen")
 
 
 def extract_rodata(obj_name: str) -> tuple[bytes, dict[str, int]]:

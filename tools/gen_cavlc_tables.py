@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Generates the H.264 CAVLC VLC tables (ITU-T H.264 Tables 9-5..9-10 and the
 coded_block_pattern me(v) mappings of Table 9-4) into
-avrecode_tpu/native/gen/cavlc_tables.h, extracting the numeric spec data from
+avrecode_jax/native/gen/cavlc_tables.h, extracting the numeric spec data from
 the system libavcodec static library (same approach as gen_cabac_tables.py)."""
 import os
 import subprocess
@@ -10,7 +10,7 @@ import tempfile
 import numpy as np
 
 AR = "/usr/lib/x86_64-linux-gnu/libavcodec.a"
-OUT = os.path.join(os.path.dirname(__file__), "..", "avrecode_tpu", "native", "gen")
+OUT = os.path.join(os.path.dirname(__file__), "..", "avrecode_jax", "native", "gen")
 
 
 def rodata(obj):

@@ -33,13 +33,13 @@
 #include <string>
 #include <vector>
 
-#include "avrecode_tpu/native/bitstream.h"
-#include "avrecode_tpu/native/cabac.h"
-#include "avrecode_tpu/native/cavlc_stream.h"
-#include "avrecode_tpu/native/h264_cavlc.h"
-#include "avrecode_tpu/native/h264_params.h"
-#include "avrecode_tpu/native/h264_slice.h"
-#include "avrecode_tpu/native/nal.h"
+#include "avrecode_jax/native/bitstream.h"
+#include "avrecode_jax/native/cabac.h"
+#include "avrecode_jax/native/cavlc_stream.h"
+#include "avrecode_jax/native/h264_cavlc.h"
+#include "avrecode_jax/native/h264_params.h"
+#include "avrecode_jax/native/h264_slice.h"
+#include "avrecode_jax/native/nal.h"
 
 extern "C" {
 #include <libavcodec/avcodec.h>

@@ -38,7 +38,7 @@ sys.path.insert(0, REPO)
 # knobs before the native library runs anything.
 os.environ["ARTC_REFMODEL"] = "1"
 
-from avrecode_tpu import host  # noqa: E402
+from avrecode_jax import host  # noqa: E402
 
 
 def gen_clips(tmp: str, quick: bool) -> list[tuple[str, str, bool]]:

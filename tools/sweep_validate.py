@@ -31,7 +31,7 @@ def main():
     n_cfg = int(sys.argv[1]) if len(sys.argv) > 1 else 24
     seed = int(sys.argv[2]) if len(sys.argv) > 2 else 1
     rng = random.Random(seed)
-    from avrecode_tpu import pipeline
+    from avrecode_jax import pipeline
 
     tmp = tempfile.mkdtemp(prefix="artc_sweep_")
     gen = build("make_corpus", tmp, ["-lavcodec", "-lavformat", "-lavutil"])

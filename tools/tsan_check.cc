@@ -4,8 +4,8 @@
 // can watch them. Build + run (tests/test_coder.py::test_tsan_clean does
 // this when ARTC_TSAN=1):
 //
-//   g++ -fsanitize=thread -O1 -g -I avrecode_tpu/native \
-//       -o /tmp/tsan_check avrecode_tpu/native/recode.cc tools/tsan_check.cc \
+//   g++ -fsanitize=thread -O1 -g -I avrecode_jax/native \
+//       -o /tmp/tsan_check avrecode_jax/native/recode.cc tools/tsan_check.cc \
 //       -lpthread
 //   /tmp/tsan_check <clip> ...
 //
